@@ -1,4 +1,4 @@
-"""Measured CPU baselines for BASELINE.md configs 2-4.
+"""CPU baselines for BASELINE.json configs 2-4.
 
 The C++ reference cannot be built in this environment (empty vendored
 submodules, no FFTW/GSL), so — as with the NumPy Högbom baseline in
@@ -18,8 +18,7 @@ implemented with vectorized NumPy + multithreaded ``scipy.fft``:
   (``cpp/algorithms/iuwt_deconvolution_algorithm.cc:326-407,803-918``).
 
 Each ``baseline_*`` function returns ``(iterations, seconds)`` so callers
-derive iterations/s; ``main`` prints one JSON line per config for
-BASELINE.md bookkeeping.
+derive iterations/s; ``main`` prints one JSON line per config.
 """
 
 from __future__ import annotations
@@ -143,7 +142,7 @@ def baseline_multiscale(
     peak has decreased to ``(1 - sub_minor_loop_gain)`` of the value it had
     when the scale was selected (``settings.h:476-481``, default 0.2), NOT a
     fixed iteration count — so the scale-bank FFT refresh happens every few
-    minor iterations, exactly as in the reference and in the TPU rebuild.
+    minor iterations, exactly as in the reference and in the JAX rebuild.
 
     ``padded_corrections=True`` pads the per-outer-iteration residual
     correction to the reference's own per-scale convolution size

@@ -3,7 +3,7 @@
 Breaks the per-iteration cost of ``models/iuwt.py`` into its jitted
 dispatches (structure_stats, select_structures, bbox, CG at the typical
 box sizes, rms_guard, apply_structure_update) so optimization effort goes
-where the time is.  Run on the real TPU:
+where the time is.  Run on a GPU:
 
     python benchmarks/iuwt_profile.py --size 4096
 """
@@ -24,13 +24,11 @@ from radler_tpu.ops.convolution import convolve_same
 
 
 def timeit(label, fn, n=5):
-    from radler_tpu.utils.profiling import force_sync
-
-    force_sync(fn())  # compile + drain
+    jax.block_until_ready(fn())  # compile + drain
     best = float("inf")
     for _ in range(n):
         t0 = time.perf_counter()
-        force_sync(fn())
+        jax.block_until_ready(fn())
         best = min(best, time.perf_counter() - t0)
     print(f"{label:42s} {best * 1e3:9.2f} ms", flush=True)
     return best

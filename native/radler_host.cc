@@ -1,6 +1,6 @@
 // Native host-side helpers for radler_tpu.
 //
-// The TPU compute path is JAX/XLA; these are the genuinely sequential
+// The device compute path is JAX/XLA; these are the genuinely sequential
 // host-runtime pieces that the reference implements in C++ and that are slow
 // in pure Python:
 //   * the minimum-|flux| Dijkstra divider used for facet boundaries

@@ -6,7 +6,7 @@ TPU-native equivalent of ``cpp/math/component_optimization.{h,cc}``:
   amplitudes so the residual is zero at component positions
   (``component_optimization.cc:181-263``).  The reference builds a wrap-around
   PSF matrix and calls GSL; here the (K x K) system is built with one PSF
-  gather and solved with ``jnp.linalg.solve`` on the MXU.
+  gather and solved with ``jnp.linalg.solve`` on the device.
 * ``gradient_descent`` — line-search gradient descent where gradient and
   residual are computed with FFT convolutions
   (``component_optimization.cc:265-321``); independent of the number of
@@ -229,7 +229,7 @@ def lm_nonlinear_fit(
     ``mu = 0.1``.  The model is linear in ``x``, so ``A^T A`` is the circular
     autocorrelation of the PSF gathered at pairwise position offsets — the
     whole LM solve then runs on-device in K-space (one [K, K] system per LM
-    step on the MXU) with two FFT correlations of image-size work total.
+    step) with two FFT correlations of image-size work total.
 
     Returns ``(model, residual)`` like the reference: the fitted amplitudes
     placed at their positions, and ``dirty - model ⊛ psf`` everywhere (the

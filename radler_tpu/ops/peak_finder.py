@@ -2,7 +2,7 @@
 
 Behavioral equivalent of ``cpp/math/peak_finder.{h,cc}``.  Instead of the
 reference's AVX scan, the image is reduced with a single fused masked argmax
-that XLA maps onto the VPU at HBM bandwidth; on a device mesh the same
+that XLA runs as one reduction at device-memory bandwidth; on a device mesh the same
 function composes with ``jax.lax.pmax`` for the global facet reduction.
 
 Semantics preserved from the reference:
@@ -121,9 +121,8 @@ def find_peak(
 
     Equivalent of ``math::peak_finder::Find`` / ``FindWithMask``.
     ``mask`` is an optional bool array; ``horizontal_border`` /
-    ``vertical_border`` are static ints.  One jitted dispatch: on
-    remote-dispatch backends every eager op costs a full round trip
-    (~40 ms), so the previous eager formulation paid ~8 of them per call.
+    ``vertical_border`` are static ints.  One jitted dispatch instead of
+    ~8 eager ops, each of which is a separate launch.
     """
     if mask is None:
         mask_in, has_mask = _dummy_mask(image.shape), False

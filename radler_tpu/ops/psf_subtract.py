@@ -4,9 +4,10 @@ TPU-native equivalent of the reference's SIMD subtraction kernels
 (``cpp/algorithms/simple_clean.cc``): instead of a scalar patch loop, the PSF
 is shifted to the component position with a roll and the wrapped region is
 masked off, producing exactly the clipped patch semantics of
-``simple_clean::PartialSubtractImage`` as one fused VPU pass.  The full
-residual-cube update ``residual -= value * shifted_psf`` then runs at HBM
-bandwidth with no host involvement, and vmaps over the image axis.
+``simple_clean::PartialSubtractImage`` as one fused elementwise pass.  The
+full residual-cube update ``residual -= value * shifted_psf`` then runs at
+device-memory bandwidth with no host involvement, and vmaps over the image
+axis.
 """
 
 from __future__ import annotations

@@ -346,58 +346,3 @@ class TestComponentOptimization:
         )
         assert np.asarray(deltas[0])[8, 8] == pytest.approx(1.5, rel=0.05)
         assert np.asarray(deltas[1])[22, 20] == pytest.approx(0.7, rel=0.1)
-
-
-class TestPallasHogbomLoop:
-    def test_interpret_mode_matches_jnp_loop(self):
-        """The fused-kernel loop (interpret mode) reproduces the jnp
-        while-loop bit-for-bit on a small problem."""
-        import jax
-        from radler_tpu.image_set import CubeMeta
-        from radler_tpu.models.generic_clean import _hogbom_loop
-        from radler_tpu.ops.pallas.hogbom_step import (
-            hogbom_loop_pallas,
-            pad_psfs,
-        )
-
-        rng = np.random.default_rng(0)
-        H = W = 128
-        meta = CubeMeta(1, 1, (1.0,), (True,), 1.0, False, (0.0,))
-        res = jnp.asarray(rng.normal(size=(1, H, W)).astype(np.float32) * 0.01)
-        res = res.at[0, 40, 50].add(2.0)
-        res = res.at[0, 90, 100].add(1.0)
-        model = jnp.zeros((1, H, W), jnp.float32)
-        psf = jnp.zeros((1, H, W), jnp.float32).at[0, H // 2, W // 2].set(1.0)
-        psf = psf.at[0, H // 2, W // 2 + 1].set(0.3)
-        ones = jnp.ones((H, W), jnp.float32)
-        mask = jnp.ones((H, W), bool)
-        common = (
-            jnp.float32(2.0),
-            jnp.int32(50),
-            jnp.int32(40),
-            jnp.asarray(True),
-            jnp.float32(0.02),
-            jnp.float32(0.2),
-            jnp.float32(2.0),
-            jnp.float32(0.0),
-            jnp.int32(0),
-            jnp.int32(200),
-        )
-        res_a, mod_a, it_a, val_a, *_ = _hogbom_loop(
-            res, model, psf, ones, mask, *common,
-            meta=meta, allow_negative=True, stop_on_negative=False,
-            fitter=None, border_h=0, border_v=0, use_rms=False,
-            use_mask=False,
-        )
-        res_b, mod_b, it_b, val_b, *_ = hogbom_loop_pallas(
-            res, model, pad_psfs(psf), ones, ones, *common,
-            meta=meta, allow_negative=True, stop_on_negative=False,
-            fitter=None, block_rows=32, use_weight=False, interpret=True,
-        )
-        assert int(it_a) == int(it_b)
-        np.testing.assert_allclose(
-            np.asarray(res_a), np.asarray(res_b), atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(mod_a), np.asarray(mod_b), atol=1e-6
-        )
